@@ -366,8 +366,8 @@ class TestCGSolver:
 
 class TestPointMajorSolver:
     """Point-major block-sparse Schur path (optim/schur_pm.py): the
-    big-map fast solver behind ba_solve's V>=512 dispatch (the TPU
-    analogue of the reference's sparse BlockSolver_6_3,
+    big-map fast solver behind ba_solve's V>=128 dispatch (the
+    counterpart of the reference's sparse BlockSolver_6_3,
     globaloptimizer_g2o.cpp:176)."""
 
     def _problem(self, n_kf, n_pt, obs_per_pt, seed=7):
@@ -384,7 +384,7 @@ class TestPointMajorSolver:
 
         problem, cam = self._problem(64, 2048, 6)
         rd = ba_solve(problem, cam, iters=12, stages=2, solver="dense")
-        pm = pm_problem_for(problem)
+        pm, _ = pm_problem_for(problem)
         assert pm is not None
         cp, pt, costs, c2, bad = pm_staged_lm(pm, cam, iters=12, stages=2)
         # CG truncation and lazy relinearization allow a modest gap vs the
@@ -441,7 +441,7 @@ class TestPointMajorSolver:
             mobs_w=jnp.ones(1),
             mobs_valid=jnp.ones(1, bool),
         )
-        assert build_pm_problem(mk) is None
+        assert build_pm_problem(mk) == (None, 0)
 
     def test_pm_caps_skewed_graphs_instead_of_bailing(self):
         """A loopy map's hyper-observed points must not silently kick the
@@ -458,15 +458,13 @@ class TestPointMajorSolver:
         m = rng.random(len(obs_pt)) < 0.08  # 8% of obs onto 30 points
         obs_pt[m] = rng.choice(hyper, int(m.sum()))
         skewed = problem._replace(obs_pt=jnp.asarray(obs_pt))
-        pm = build_pm_problem(skewed)
+        pm, dropped = build_pm_problem(skewed)
         assert pm is not None, "skewed graph bailed instead of capping"
-        assert pm.dropped_obs > 0
+        assert dropped > 0
         cp, pt, costs, _, _ = pm_staged_lm(pm, cam, iters=6, stages=2)
         assert float(costs[-1]) < float(costs[0])
         # the dispatcher path: chi2 of dropped obs is the exact residual
         r = ba_solve(skewed, cam, iters=4, stages=1, solver="auto")
-        if pm.dropped_obs:  # pm path taken (V=16 < 128 means general path)
-            pass
         c2_direct, _ = _chi2_of(skewed, r.cam_pose, r.pt_pos, cam)
         np.testing.assert_allclose(
             np.asarray(r.obs_chi2), np.asarray(c2_direct), rtol=1e-3,

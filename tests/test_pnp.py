@@ -140,9 +140,9 @@ class TestProjectionMatching:
 
 
 class TestFusedLMKernel:
-    """The Pallas-fused motion-only LM (ops/pallas/lm_kernel.py) must match
-    the jnp implementation (interpret mode; the TPU path compiles the same
-    kernel through Mosaic)."""
+    """The fused motion-only LM (ops/pallas/lm_kernel.py) must match the
+    jnp implementation (interpret mode on the CPU; the GPU compiles the
+    same kernel through Triton)."""
 
     def _scene(self, n=257, outlier_frac=0.2, seed=7):
         rng = np.random.default_rng(seed)

@@ -107,7 +107,6 @@ def test_global_ba_dispatches_to_mesh(mesh):
     finally:
         set_ba_mesh(None)
     n_bad = global_bundle_adjustment(m2, CAM, n_iters=20)
-    set_ba_mesh("auto")
     err_sh, err_single = corner_err(m), corner_err(m2)
     assert err_sh < err0 * 0.2, (err0, err_sh)
     assert abs(err_sh - err_single) < 2e-3, (err_sh, err_single)

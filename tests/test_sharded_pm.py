@@ -29,7 +29,7 @@ def mesh():
 
 def _pm_for(n_kf=8, n_pt=200, **kw):
     problem, poses_true, X = make_problem(n_kf=n_kf, n_pt=n_pt, **kw)
-    pm = pm_problem_for(problem)
+    pm, _ = pm_problem_for(problem)
     assert pm is not None, "test problem must be pm-suitable"
     return problem, pm, poses_true
 
@@ -127,7 +127,7 @@ def test_dispatch_routes_big_problems_to_sharded_pm(mesh, monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(sp, "sharded_pm_solve", spy)
-    monkeypatch.setattr(ba, "_resolve_ba_mesh", lambda n: mesh)
+    monkeypatch.setattr(ba, "_ba_mesh", mesh)
     # lower the V gate by calling with a problem that qualifies: pad
     # cameras to 128 via build (the make_problem V is small) — instead
     # just exercise the code path with the gate relaxed
@@ -135,7 +135,31 @@ def test_dispatch_routes_big_problems_to_sharded_pm(mesh, monkeypatch):
 
     with mock.patch.object(ba, "_solve_dispatch", wraps=ba._solve_dispatch):
         # directly test: V < 128 routes to general sharded path (no spy)
-        res, solved = ba._solve_dispatch(problem, CAM, 6, 200)
+        res, solved = ba._solve_dispatch(problem, CAM, 6)
         assert "yes" not in called
     costs = np.asarray(res.cost_history)
     assert costs[-1] <= costs[0]
+
+
+def test_sharded_solvers_compile_once(mesh):
+    """Repeated solves with the same mesh, shapes and settings reuse one
+    compiled program (no re-trace per call)."""
+    from ucoslam_tpu.parallel import sharded_pm
+    from ucoslam_tpu.parallel.sharded_posegraph import (
+        shard_pose_graph_problem, sharded_pose_graph_solve,
+    )
+
+    _, pm, _ = _pm_for()
+    spm = shard_pm_problem(pm, 8)
+    before = sharded_pm._sharded_pm_lm._cache_size()
+    for _ in range(3):
+        jax.block_until_ready(sharded_pm_solve(spm, CAM, mesh, iters=2, stages=1))
+    assert sharded_pm._sharded_pm_lm._cache_size() == before + 1
+
+    import chip_smoke
+
+    pg = shard_pose_graph_problem(chip_smoke.loop_pose_graph(8), 8)
+    before = sharded_pose_graph_solve._cache_size()
+    for _ in range(3):
+        jax.block_until_ready(sharded_pose_graph_solve(pg, mesh, iters=2))
+    assert sharded_pose_graph_solve._cache_size() == before + 1

@@ -1,7 +1,7 @@
-"""ucoslam_tpu — a TPU-native keypoint + fiducial-marker SLAM engine.
+"""ucoslam_tpu — a keypoint + fiducial-marker SLAM engine in JAX for the GPU.
 
 A from-scratch JAX/XLA/Pallas implementation of the capability surface of
-UcoSLAM (reference: /root/reference, C++/OpenCV/g2o): monocular, stereo and
+UcoSLAM (reference: the C++/OpenCV/g2o UcoSLAM 1.0.7): monocular, stereo and
 RGB-D keypoint SLAM fully integrated with ArUco fiducial markers for
 initialization, tracking, relocalization and real-scale recovery.
 
@@ -11,7 +11,7 @@ indices, sparse-graph LM) is replaced with batched, fixed-shape,
 functionally-updated device state:
 
 - feature extraction  -> batched FAST/ORB over the whole pyramid at once
-- xflann/fbow matching -> MXU bit-matmul Hamming top-k
+- xflann/fbow matching -> bit-matmul Hamming top-k
 - kd-tree radius search -> dense windowed candidate masks
 - g2o sparse LM        -> vmapped Schur-complement LM, shardable over a mesh
 - tracking/mapping threads -> deterministic sequential interleave (the

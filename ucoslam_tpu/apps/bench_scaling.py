@@ -1,15 +1,15 @@
-"""Multi-device BA scaling benchmark (BASELINE.md north star: >= 0.75
-scaling efficiency 1 -> N).
+"""Multi-device BA scaling benchmark (weak scaling, 1 -> N devices).
 
 Runs the production sharded Schur solver on meshes of 1, 2, ..., N local
-devices with CONSTANT PER-DEVICE LOAD (weak scaling: points and
-observations grow with the mesh) and reports per-LM-iteration time and
-efficiency vs the single-device baseline.
-
-On this environment only virtual CPU meshes exist (wall-clock efficiency
-is bounded by physical cores); on a real pod slice run:
+devices with CONSTANT PER-DEVICE LOAD (points and observations grow with
+the mesh) and reports per-LM-iteration time and efficiency vs the
+single-device baseline. Run it from the repository root (it imports the
+problem generator from bench.py) on a host with several GPUs:
 
   python -m ucoslam_tpu.apps.bench_scaling --points-per-device 8192
+
+On virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count=N)
+the times only exercise the path: the devices share the host's cores.
 """
 
 from __future__ import annotations
@@ -129,7 +129,7 @@ def main(argv=None) -> int:
             jnp, n_kf=args.keyframes, n_pt=args.points_per_device * n,
             obs_per_pt=args.obs_per_point,
         )
-        pm = pm_problem_for(problem)
+        pm, _ = pm_problem_for(problem)
         if pm is not None:
             mesh = make_mesh(n)
             spm = shard_pm_problem(pm, n)

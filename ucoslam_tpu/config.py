@@ -23,7 +23,7 @@ from typing import Any
 class DescriptorType(enum.IntEnum):
     """Keypoint descriptor types (reference src/ucoslamtypes.h:39-42).
 
-    Only ORB is TPU-native in v1; the others are plug points (the reference
+    Only ORB is device-native in v1; the others are plug points (the reference
     routes them through OpenCV's GridExtractor, gridextractor.cpp:36-39).
     """
 
@@ -136,7 +136,7 @@ class Params:
     minBaseLine: float = 0.07
     removeKeyPointsIntoMarkers: bool = True
 
-    # ---- TPU static capacities (new; no reference counterpart) ----
+    # ---- static device capacities (new; no reference counterpart) ----
     maxKeyPointsPerFrame: int = 2048  # padded keypoint slots per frame
     maxMapPoints: int = 16384  # map-point arena capacity
     maxKeyFrames: int = 256  # keyframe arena capacity

@@ -4,7 +4,7 @@ Counterpart of the reference GridExtractor descriptor families
 (gridextractor.cpp:36-39 wraps OpenCV AKAZE/BRISK/FREAK/SURF over an image
 grid). OpenCV's xfeatures2d (FREAK/SURF) is not available in this
 environment, and the reference's per-keypoint scalar sampling loops are the
-wrong shape for TPU anyway — so both are re-derived from their papers as
+wrong shape for the device anyway — so both are re-derived from their papers as
 patch-batch matmul pipelines that share the ORB extractor's detection +
 patch machinery (features/orb.py):
 
@@ -13,7 +13,7 @@ patch machinery (features/orb.py):
   Sampling = one (patch -> 43) weight matrix per quantized rotation bin;
   the descriptor is 256 point-pair intensity comparisons. The reference's
   FREAK is 512 bits; GridExtractor's unified 256-bit packing keeps the
-  TPU Hamming pipeline (ops/hamming.py) uniform across descriptor types.
+  device Hamming pipeline (ops/hamming.py) uniform across descriptor types.
 
 - SURF (Bay et al., ECCV 2006): per-pixel Haar-like gradients rotated into
   the keypoint frame, pooled over a Gaussian-weighted 4x4 subregion grid

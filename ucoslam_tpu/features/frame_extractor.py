@@ -66,9 +66,9 @@ class FrameExtractor:
     def prefetch(self, img: np.ndarray) -> None:
         """Start the host->device copy of the NEXT frame's image early.
 
-        On a remote-attached chip the image upload is a bandwidth-bound
-        serial step at the head of every frame; harness loops that know
-        the next image can overlap it with the current frame's host work.
+        The image upload is a serial step at the head of every frame;
+        harness loops that know the next image can overlap it with the
+        current frame's host work.
         """
         import jax
 
@@ -90,8 +90,7 @@ class FrameExtractor:
     def _make_ingest(self, shape):
         """One jitted program: gray -> (resize) -> detect+describe ->
         undistort -> pad-to-capacity. A single dispatch per frame instead
-        of a dozen eager ops — on a remote-attached chip every eager op
-        costs a dispatch round trip, which dominated host wall-clock."""
+        of a dozen eager ops, each of which costs a dispatch."""
         cap = self.params.maxKeyPointsPerFrame
         cam = self.cam
         has_dist = cam.has_distortion()

@@ -5,7 +5,7 @@ wraps OpenCV detectors over an image grid for descriptor types other than
 the native ORB, with the per-type matching distance table
 (gridextractor.cpp:36-39: AKAZE 120, BRISK 70, FREAK 70, SURF 0.125).
 
-Only binary 256-bit descriptors integrate with the TPU Hamming pipeline;
+Only binary 256-bit descriptors integrate with the device Hamming pipeline;
 AKAZE(MLDB-256)/BRISK are truncated/padded to 256 bits. This is a host-side
 compatibility path — the native ORB extractor is the production frontend.
 """

@@ -13,15 +13,15 @@ the original BRIEF recipe) rather than OpenCV's learned table — descriptors
 are NOT bit-compatible with OpenCV ORB, which is fine: the engine only ever
 compares its own descriptors (SURVEY.md §7 'behavioral, not bitwise').
 
-TPU hot-path design: per-pixel gathers are the enemy (tens of ns each on
-the sparse core path), so orientation + blur + descriptor sampling all run
+Hot-path design: per-pixel gathers are the enemy, so orientation + blur +
+descriptor sampling all run
 from ONE 37x37 patch per keypoint, read with row-block dynamic slices:
   patch -> IC moments as a (N, 961) @ (961, 2) matmul -> angle
         -> in-patch separable Gaussian blur (shifted adds)
         -> rotated-BRIEF sampling as a one-hot matmul against one of 64
            precomputed rotation tables (angle quantized to 5.6 deg — below
            the nearest-pixel rounding noise of the pattern itself).
-The descriptor stage is pure MXU work; the only gathers left are the N
+The descriptor stage is pure matmul work; the only gathers left are the N
 patch reads.
 """
 

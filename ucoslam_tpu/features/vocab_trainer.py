@@ -2,13 +2,13 @@
 
 Counterpart of the reference's offline fbow vocabulary creation
 (3rdparty/fbow trains hierarchical k-means over ORB descriptors; the
-shipped orb.fbow is downloaded by the GUI, README.txt:19). TPU-native
+shipped orb.fbow is downloaded by the GUI, README.txt:19). Device-native
 design: flat k-majority clustering — assignment is one batched Hamming
-argmin (an MXU bit-matmul, ops/hamming.py), the update step is a bitwise
+argmin (a bit-matmul, ops/hamming.py), the update step is a bitwise
 majority vote per cluster — and idf word weights from training-image
 document frequency. The result is written with io/fbow.save_fbow, readable
 by BOTH our kfdatabase and the reference fbow::Vocabulary::readFromFile
-(verified head-to-head in tools/parity).
+(verified head-to-head against the reference build in an earlier round).
 
 Usage:
     python -m ucoslam_tpu.features.vocab_trainer --out data/vocab.fbow \

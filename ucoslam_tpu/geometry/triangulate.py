@@ -3,7 +3,7 @@
 Counterpart of the reference `Triangulate` (misc.cpp:923) and the gated
 `triangulate_` (misc.cpp:1043). DLT on the 4x4 system built from two
 projection equations; the nullspace vector is taken from an eigendecomposition
-of A^T A (4x4 symmetric — cheap and batched on TPU, avoiding general SVD).
+of A^T A (4x4 symmetric — cheap and batched on the device, avoiding general SVD).
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ fixed-size blocks. Each block is
 `N | isLeaf | parentId | pad | F0..FN | C0W0..CNWN` (fbow.h:163-172), where
 leaf node infos carry the word id (msb set) and its weight (fbow.h:138-158).
 
-TPU-native use: the tree exists only to make CPU search fast; we FLATTEN
+Device-native use: the tree exists only to make CPU search fast; we FLATTEN
 the vocabulary to its leaf set (feature, word id, weight) and quantize by
-exact batched Hamming argmin on the MXU (mapping/kfdatabase.py). A writer
+exact batched Hamming argmin as one matmul (mapping/kfdatabase.py). A writer
 produces a valid 2-level .fbow tree so vocabularies generated here can be
 read back by the reference implementation.
 """

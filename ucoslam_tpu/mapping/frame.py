@@ -4,7 +4,7 @@ Counterpart of the reference `Frame` (src/map_types/frame.h:48-236): raw and
 undistorted keypoints, descriptors, per-keypoint map-point ids, depths,
 markers with IPPE pose pairs, pose_f2g, and scale-prediction helpers. The
 reference's per-frame kd-tree (frame.h:124) has no equivalent here —
-radius queries are dense masked distance computations at TPU batch sizes.
+radius queries are dense masked distance computations at device batch sizes.
 """
 
 from __future__ import annotations
@@ -90,9 +90,8 @@ def strip_markers(frame: Frame) -> Frame:
 
     Frames carry host-numpy marker leaves (host control flow reads them
     every frame); jitted programs that ignore markers would still upload
-    all seven numpy arrays on every call (~a round trip each on a
-    remote-attached chip). The cached device constant transfers once per
-    process."""
+    all seven numpy arrays on every call. The cached device constant
+    transfers once per process."""
     global _EMPTY_MARKERS_DEV
     if _EMPTY_MARKERS_DEV is None:
         _EMPTY_MARKERS_DEV = jax.device_put(empty_markers())

@@ -5,9 +5,9 @@ Counterpart of the reference KeyFrameDataBase (keyframedatabase.{h:32,cpp:15-
 descriptor set to a sparse word histogram; candidate keyframes score by
 histogram similarity, gated against covisibility-neighbour scores.
 
-TPU-native design: the hierarchical AVX k-means tree collapses into ONE
+Device-native design: the hierarchical AVX k-means tree collapses into ONE
 batched Hamming argmin against a flat vocabulary of binary centroids
-(a dense (N, V) distance matrix on the MXU) — the tree exists only to make
+(a dense (N, V) distance matrix) — the tree exists only to make
 CPUs fast. The vocabulary is deterministic (seeded), so no .fbow file is
 required; a loader hook can replace it with a trained vocabulary later.
 A DummyDataBase equivalent (vocab=None) disables reloc/loop-by-keypoints,
@@ -134,7 +134,7 @@ class KeyFrameDataBase:
     entries of the L2-normalized histogram — the transpose of the
     reference's word->keyframes inverted index (keyframedatabase.cpp:15-
     369), equivalent in memory and score but batched keyframe-major for
-    the TPU (scoring = one (K, W) gather + reduce, no per-word lists).
+    the device (scoring = one (K, W) gather + reduce, no per-word lists).
 
     `dummy=True` reproduces the reference's DummyDataBase
     (keyframedatabase.cpp:98): no vocabulary — add/query are no-ops and no

@@ -11,7 +11,7 @@ updates replace IoMutex/consitencyMutex (map.h:191-192).
 
 Covisibility (covisgraph.h:39): instead of an edge map keyed by packed 64-bit
 pairs, we keep the keyframe x point observation incidence implicit in
-`kf_ids` and compute covis weights as an incidence matmul on the MXU.
+`kf_ids` and compute covis weights as an incidence matmul.
 """
 
 from __future__ import annotations
@@ -246,7 +246,7 @@ def op_point_observation_counts(state: MapState) -> jnp.ndarray:
 def op_covis_matrix(state: MapState) -> jnp.ndarray:
     """(K, K) int32 covisibility weights = #points co-observed.
 
-    Incidence matmul on the MXU: O (K, P) in bf16 {0,1}; covis = O O^T.
+    Incidence matmul: O (K, P) in bf16 {0,1}; covis = O O^T.
     Counterpart of CovisGraph edge bookkeeping (covisgraph.h:63-64) — here
     recomputed exactly from the observation store when needed.
     """
@@ -419,9 +419,9 @@ class Map:
     # -- host mirror ----------------------------------------------------
     # The canonical state lives on device; host-side orchestration reads
     # small summaries of it constantly (keyframe policy, culling, covis
-    # walks). On a remote-attached chip every np.asarray(state.x) is a
-    # full round trip, so fetched fields are cached until the next state
-    # write (any assignment to .state invalidates).
+    # walks). Every np.asarray(state.x) is a device round trip, so
+    # fetched fields are cached until the next state write (any
+    # assignment to .state invalidates).
 
     @property
     def state(self) -> MapState:

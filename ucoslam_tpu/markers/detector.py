@@ -99,6 +99,13 @@ class ArucoDetector:
     def available(self) -> bool:
         return self._detector is not None
 
+    @property
+    def backend(self) -> str | None:
+        """"native", "cv2", or None when no backend could be loaded."""
+        if self._detector is None:
+            return None
+        return "native" if self._native else "cv2"
+
     def _detect_raw(self, gray: np.ndarray):
         """-> (ids list, corners (n, 4, 2))."""
         if self._native:

@@ -1,7 +1,7 @@
 """ctypes binding for the native C++ ArUco detector (native/aruco_detector.cpp).
 
-Builds the shared library on first use if the toolchain is available; the
-cv2-backed detector remains as fallback. The native path removes the OpenCV
+Builds the shared library on first use if the toolchain is available
+(`build`); the cv2-backed detector remains as fallback. The native path removes the OpenCV
 dependency from marker detection, mirroring the reference's vendored C++
 aruco (3rdparty/aruco).
 """
@@ -14,22 +14,45 @@ import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libaruco_native.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_NATIVE_DIR = os.path.join(_ROOT, "native")
+#: built from the tracked sources into the git-ignored build/ tree, so a
+#: library compiled on another machine is never picked up from a checkout
+_BUILD_DIR = os.path.join(_ROOT, "build", "native")
+_LIB_PATH = os.path.join(_BUILD_DIR, "libaruco_native.so")
 
 _lib = None
+
+
+def build(force: bool = False) -> str:
+    """Compile native/aruco_detector.cpp into build/native/ with make.
+
+    force=True rebuilds even when the library exists (a checkout copied
+    from another machine must not reuse its binary). Raises on failure.
+    """
+    global _lib
+    if force:
+        _lib = None
+    if os.path.exists(_LIB_PATH) and not force:
+        return _LIB_PATH
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    # build under a private name and rename: concurrent test workers may
+    # build at once, and none may load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+    subprocess.run(["make", "-B", "-C", _NATIVE_DIR, f"OUT={tmp}"],
+                   check=True, capture_output=True, timeout=300)
+    os.replace(tmp, _LIB_PATH)
+    return _LIB_PATH
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    try:
+        build()
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:

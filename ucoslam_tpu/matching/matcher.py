@@ -5,7 +5,7 @@ modes ALL/ASSIGNED/UNASSIGNED, Lowe ratio test, rotation-consistency
 histogram (computeThreeMaxima :56), octave gate, and the epipolar variant
 gated by chi2(1) = 3.84 sigma^2 (matchEpipolar :261,456). The xflann HKMeans
 index and fBow2-aligned iteration both collapse into one dense Hamming
-matrix — brute force is the fast path at TPU batch sizes.
+matrix — brute force is the fast path at device batch sizes.
 """
 
 from __future__ import annotations

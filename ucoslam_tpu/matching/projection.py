@@ -32,33 +32,6 @@ class ProjectionMatches(NamedTuple):
     n_matched: jnp.ndarray  # () int32 accepted matches
 
 
-_MATCH_BACKEND = "auto"  # "auto" | "xla" | "pallas"
-
-
-def set_match_backend(backend: str) -> None:
-    """Select the gated-matching backend: "pallas" (fused TPU kernel),
-    "xla" (dense MXU bit-matmul), or "auto" (pallas on TPU, xla elsewhere).
-    Callers of match_points_to_frame retrace on change."""
-    global _MATCH_BACKEND
-    assert backend in ("auto", "xla", "pallas"), backend
-    _MATCH_BACKEND = backend
-    match_points_to_frame.clear_cache()
-
-
-def _use_pallas(n_pts: int, n_kpts: int) -> bool:
-    if _MATCH_BACKEND == "xla":
-        return False
-    if _MATCH_BACKEND == "pallas":
-        return True
-    from ucoslam_tpu.ops.pallas.match_kernel import BN, BP
-
-    return (
-        jax.default_backend() == "tpu"
-        and n_pts % BP == 0
-        and n_kpts % BN == 0
-    )
-
-
 @jax.jit
 def match_points_to_frame(
     pt_pos: jnp.ndarray,  # (L, 3) world positions of candidate points
@@ -106,26 +79,12 @@ def match_points_to_frame(
     kp_scale = jnp.exp(frame.octave.astype(jnp.float32) * log_sf)
     radius = proj_dist_thr * kp_scale  # (N,)
 
-    if _use_pallas(pt_desc.shape[0], frame.desc.shape[0]):
-        # fused Pallas kernel: distance + gates + best-2 never leave VMEM
-        from ucoslam_tpu.ops.pallas.match_kernel import project_match_pallas
-
-        kpt_idx, best, second = project_match_pallas(
-            pt_desc, uv, pred_octave, visible,
-            frame.desc, frame.und_xy, frame.octave, frame.valid,
-            radius**2,
-            interpret=jax.default_backend() != "tpu",
-        )
-        # match the XLA path's argmin-of-empty-row convention (idx 0)
-        kpt_idx = jnp.maximum(kpt_idx, 0)
-    else:
-        d2 = jnp.sum((uv[:, None, :] - frame.und_xy[None, :, :]) ** 2, -1)
-        in_radius = d2 < (radius[None, :] ** 2)
-        octave_ok = jnp.abs(frame.octave[None, :] - pred_octave[:, None]) <= 1
-        # MXU bit-matmul: ~2x the VPU popcount path at map x frame sizes
-        dmat = hamming_matrix_mxu(pt_desc, frame.desc)  # (L, N)
-        mask = in_radius & octave_ok & visible[:, None] & frame.valid[None, :]
-        kpt_idx, best, second = match_best2(dmat, extra_mask=mask)
+    d2 = jnp.sum((uv[:, None, :] - frame.und_xy[None, :, :]) ** 2, -1)
+    in_radius = d2 < (radius[None, :] ** 2)
+    octave_ok = jnp.abs(frame.octave[None, :] - pred_octave[:, None]) <= 1
+    dmat = hamming_matrix_mxu(pt_desc, frame.desc)  # (L, N)
+    mask = in_radius & octave_ok & visible[:, None] & frame.valid[None, :]
+    kpt_idx, best, second = match_best2(dmat, extra_mask=mask)
     accept = (best <= max_desc_dist) & (best.astype(jnp.float32) < 0.9 * second)
     # one point per keypoint: keep the best-scoring claimant
     keep = filter_ambiguous_train_sized(kpt_idx, jnp.where(accept, best, INVALID_DIST), frame.n)

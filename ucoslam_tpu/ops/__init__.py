@@ -1,4 +1,4 @@
-"""TPU compute kernels: Hamming matching, FAST/ORB frontend, image ops."""
+"""Device compute kernels: Hamming matching, FAST/ORB frontend, image ops."""
 
 from ucoslam_tpu.ops.hamming import (  # noqa: F401
     hamming_matrix,

@@ -5,11 +5,11 @@ This replaces three reference subsystems at once (SURVEY.md §2):
 - FrameMatcher descriptor loops (src/utils/framematcher.cpp:31-608)
 - MapPoint::getDescDistance 64-bit XOR+popcount helpers (mappoint.h:138-177)
 
-At TPU batch sizes a brute-force distance matrix beats any tree index. Two
+At device batch sizes a brute-force distance matrix beats any tree index. Two
 interchangeable paths:
 
-1. `hamming_matrix`   — XOR + `lax.population_count` on uint32 words (VPU).
-2. `hamming_matrix_mxu` — descriptors unpacked to ±1 bf16 and fed to the MXU:
+1. `hamming_matrix`   — XOR + `lax.population_count` on uint32 words.
+2. `hamming_matrix_mxu` — descriptors unpacked to ±1 bf16 and fed to a matmul:
    for a, b in {-1,+1}^256, popcount(a XOR b) = (256 - <a, b>) / 2, so one
    (N,256)x(256,M) matmul computes the whole distance matrix at matmul speed.
 
@@ -44,7 +44,7 @@ def unpack_descriptor_bits(desc: jnp.ndarray, dtype=jnp.bfloat16) -> jnp.ndarray
 
 
 def hamming_matrix_mxu(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
-    """Hamming distance matrix on the MXU via the ±1 bit-matmul identity.
+    """Hamming distance matrix as a matmul via the ±1 bit-matmul identity.
 
     Exact for 256-bit descriptors: the dot product of ±1 vectors is an even
     integer in [-256, 256], well inside bf16's exact-integer range (|x|<=2^8

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot matching paths."""
+"""Pallas kernels (Triton route, GPU) for the per-frame tracking path."""

@@ -12,7 +12,7 @@ Counterpart of the reference PnPSolver (src/optimization/pnpsolver.cpp):
 - `pnp_ransac`      <-> PnPSolver::solvePnPRansac (pnpsolver.cpp:36):
   the reference draws 4-point subsets for cv P3P; we vmap a 6-point DLT
   minimal solver over many hypotheses at once (a batch of tiny eigh
-  problems beats a sequential P3P loop on TPU), then score inliers with
+  problems beats a sequential P3P loop on the device), then score inliers with
   the same 5.99 px^2 gate and viewCos > 0.5 (pnpsolver.cpp:62-106).
 """
 
@@ -66,23 +66,21 @@ def _reproj_residual_jac(pose, X, cam: CameraParams):
     return q, uv, J
 
 
-_LM_BACKEND = "auto"  # "auto" | "xla" | "pallas"
+_LM_BACKEND = "auto"  # "auto" | "xla" | "triton"
 
 
 def set_lm_backend(backend: str) -> None:
-    """Select the motion-only-LM backend: "pallas" (single fused TPU
-    kernel, ops/pallas/lm_kernel.py), "xla" (jnp op-by-op), or "auto"
-    (pallas on TPU, xla elsewhere). Callers retrace on change."""
+    """Select the motion-only-LM backend: "triton" (one fused Pallas
+    program, ops/pallas/lm_kernel.py; GPU only), "xla" (jnp op-by-op), or
+    "auto" (the fused kernel when compiled for a CUDA device and the point
+    count fits it, xla otherwise). Every jitted program retraces
+    after a change."""
     global _LM_BACKEND
-    assert backend in ("auto", "xla", "pallas"), backend
+    if backend not in ("auto", "xla", "triton"):
+        raise ValueError(f"unknown LM backend {backend!r}")
     _LM_BACKEND = backend
-    motion_only_lm.clear_cache()
-
-
-def _use_pallas_lm() -> bool:
-    if _LM_BACKEND == "xla":
-        return False
-    return _LM_BACKEND == "pallas" or jax.default_backend() == "tpu"
+    # jitted callers (the tracker's _track_step) cache their traces too
+    jax.clear_caches()
 
 
 @partial(jax.jit, static_argnames=("iters", "rounds"))
@@ -104,18 +102,34 @@ def motion_only_lm(
     u_r = u - bf/z as in EdgeStereoSE3ProjectXYZOnlyPose (pnpsolver.cpp:246),
     gated at chi2(3D).
     """
-    has_depth = depth is not None
-    if _use_pallas_lm():
-        from ucoslam_tpu.ops.pallas.lm_kernel import motion_only_lm_fused
+    from ucoslam_tpu.ops.pallas.lm_kernel import MAX_POINTS, motion_only_lm_fused
 
-        pose, inliers = motion_only_lm_fused(
+    def xla(*a):
+        return _motion_only_lm_xla(*a, cam, iters=iters, rounds=rounds)
+
+    def fused(pose_init, pts3d, uv, sigma2, valid, depth, bf):
+        return motion_only_lm_fused(
             pose_init, pts3d, uv, sigma2, valid, cam.fx, cam.fy, cam.cx,
             cam.cy, depth=depth, bf=bf, iters=iters, rounds=rounds,
-            has_depth=has_depth,
+            has_depth=depth is not None,
         )
-        return PnPResult(
-            pose_f2g=pose, inliers=inliers, n_inliers=jnp.sum(inliers)
-        )
+
+    args = (pose_init, pts3d, uv, sigma2, valid, depth, bf)
+    if _LM_BACKEND == "triton":
+        pose, inliers = fused(*args)
+    elif _LM_BACKEND == "auto" and pts3d.shape[0] <= MAX_POINTS:
+        pose, inliers = jax.lax.platform_dependent(*args, cuda=fused, default=xla)
+    else:
+        pose, inliers = xla(*args)
+    return PnPResult(pose_f2g=pose, inliers=inliers, n_inliers=jnp.sum(inliers))
+
+
+def _motion_only_lm_xla(
+    pose_init, pts3d, uv, sigma2, valid, depth, bf, cam: CameraParams,
+    iters: int, rounds: int,
+):
+    """motion_only_lm as plain jnp ops -> (pose (4, 4), inliers (B,))."""
+    has_depth = depth is not None
     if depth is None:
         depth = jnp.zeros(pts3d.shape[0])
     if bf is None:
@@ -189,8 +203,7 @@ def motion_only_lm(
         pose = gn_round(pose, inlier_mask)
         c2, q = chi2_of(pose, inlier_mask)
         inlier_mask = (valid & (c2 < delta2) & (q[:, 2] > 0)).astype(jnp.float32)
-    inliers = inlier_mask > 0
-    return PnPResult(pose_f2g=pose, inliers=inliers, n_inliers=jnp.sum(inliers))
+    return pose, inlier_mask > 0
 
 
 def _dlt_pose(X: jnp.ndarray, uv_norm: jnp.ndarray) -> jnp.ndarray:

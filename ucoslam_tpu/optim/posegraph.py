@@ -6,9 +6,9 @@ for stereo/RGB-D via the fix-scale switch :108), loop-old side fixed (:105),
 relative-Sim3 edges weighted by covisibility (:116-145), LM (:85-153),
 poses written back as SE3 = [sR t]/s (:156-165).
 
-TPU-native: per-edge 7x7 Jacobian blocks from vmapped forward-mode autodiff
+Device-native: per-edge 7x7 Jacobian blocks from vmapped forward-mode autodiff
 through the Sim3 exp/log chain; Hessian scattered into (K, K, 7, 7) and the
-dense 7K system solved on the MXU (K is keyframe count — small).
+dense 7K system solved in one dense solve (K is keyframe count — small).
 """
 
 from __future__ import annotations

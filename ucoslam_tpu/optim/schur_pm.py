@@ -4,7 +4,7 @@ Same algorithm as optim/ba.py `_staged_lm` (reference: GlobalOptimizerG2O,
 globaloptimizer_g2o.cpp:77-537 — SE3 cameras, marginalized XYZ points,
 mono/stereo edges, staged outlier demotion) but with the observation
 stream PRE-SORTED POINT-MAJOR into a uniform (P, MO) grid, which changes
-the TPU cost profile completely:
+the accelerator cost profile completely:
 
 - every per-point reduction (Hpp, bp, Y, back-substitution) is a plain
   reshape/einsum — the pad-and-gather tables (A_pad[tbl] and friends,
@@ -65,18 +65,19 @@ class PMProblem(NamedTuple):
     vp_pair: jnp.ndarray  # (V, PB) int32 pair id (-1 pad)
     vp_other: jnp.ndarray  # (V, PB) int32 other vertex
     vp_trans: jnp.ndarray  # (V, PB) bool — this vertex is the pair's j side
-    dropped_obs: int = 0  # observations dropped by the skew cap (static)
 
 
-def build_pm_problem(problem) -> PMProblem | None:
+def build_pm_problem(problem) -> tuple[PMProblem | None, int]:
     """Convert a BAProblem to point-major form (host-side, numpy).
 
-    Returns None when the problem is unsuitable: marker edges present,
-    or the per-point observation-count skew would make the uniform grid
-    (or the pair tables) pay more than ~2.5x padding waste.
+    Returns (pm, dropped): `dropped` counts the live observations the skew
+    cap below leaves out of the solve. pm is None when the problem is
+    unsuitable: marker edges present, or the per-point observation-count
+    skew would make the uniform grid (or the pair tables) pay more than
+    ~2.5x padding waste.
     """
     if problem.mk_pose is not None and bool(np.asarray(problem.mk_valid).any()):
-        return None
+        return None, 0
     obs_cam = np.asarray(problem.obs_cam)
     obs_pt = np.asarray(problem.obs_pt)
     obs_valid = np.asarray(problem.obs_valid)
@@ -86,11 +87,11 @@ def build_pm_problem(problem) -> PMProblem | None:
     live = obs_valid & (obs_pt >= 0) & (obs_pt < P) & (obs_cam >= 0)
     n_live = int(live.sum())
     if n_live < 1:
-        return None
+        return None, 0
     counts = np.bincount(obs_pt[live], minlength=P)
     MO = int(counts.max())
     if MO == 0:
-        return None
+        return None, 0
 
     def bucket(n: int, lo: int = 8) -> int:
         """Round table widths up to powers of two: the jitted solver
@@ -127,10 +128,10 @@ def build_pm_problem(problem) -> PMProblem | None:
         while mo_fit > 4 and not guards_ok(mo_fit):
             mo_fit //= 2
         if mo_fit <= 4 or not guards_ok(mo_fit):
-            return None  # pathological graph even with capping
+            return None, 0  # pathological graph even with capping
         dropped = n_live - int(np.minimum(counts, mo_fit).sum())
         if dropped > 0.2 * n_live:
-            return None  # capping would discard too much of the problem
+            return None, 0  # capping would discard too much of the problem
         MO = mo_fit
 
     # ---- uniform (P, MO) grid, obs sorted by (point, camera) ----------
@@ -219,7 +220,7 @@ def build_pm_problem(problem) -> PMProblem | None:
     vp_other[v_s, vslot] = other[vorder]
     vp_trans[v_s, vslot] = trans[vorder]
 
-    return PMProblem(
+    pm = PMProblem(
         cam_pose=problem.cam_pose,
         cam_fixed=problem.cam_fixed,
         cam_valid=problem.cam_valid,
@@ -238,8 +239,8 @@ def build_pm_problem(problem) -> PMProblem | None:
         vp_pair=jnp.asarray(vp_pair.astype(np.int32)),
         vp_other=jnp.asarray(vp_other.astype(np.int32)),
         vp_trans=jnp.asarray(vp_trans),
-        dropped_obs=int(dropped),
     )
+    return pm, dropped
 
 
 def _residual_jac_pm(pm: PMProblem, cam_pose, pt_pos, cam: CameraParams):
@@ -329,7 +330,7 @@ def pm_staged_lm(
     degrades the STEP QUALITY (acceptance is still gated by the exact
     nonlinear cost, so a stale step is rejected, never applied wrongly);
     gradients (bv, bp, b_corr) and the acceptance cost use the CURRENT
-    residuals every step. This is the TPU analogue of incremental
+    residuals every step. This is the accelerator analogue of incremental
     solvers' lazy relinearization, and the same trick LM itself uses when
     it retries a rejected step with a larger lambda without recomputing J.
 
@@ -343,7 +344,7 @@ def pm_staged_lm(
     cost. The CG loop itself runs on fully replicated (V-sized) data —
     ZERO collectives per CG iteration, unlike the general solver's
     matrix-free path (one (V, 6) psum per iteration, which is latency-
-    bound at pod scale — the eff_64 = 0.27 finding of BENCH_r04).
+    bound as the device count grows).
     """
     V = pm.cam_pose.shape[0]
     P, MO = pm.o_cam.shape
@@ -393,7 +394,7 @@ def pm_staged_lm(
         Hv = packed[:, :36].reshape(V, 6, 6)
         DK = packed[:, 36:].reshape(V, 6, 6)
 
-        # off-diagonal Schur blocks: flat-row pair gathers + batched MXU
+        # off-diagonal Schur blocks: flat-row pair gathers + batched
         # contraction (never materializes the (P, MO, MO, 6, 6) tensor)
         Yf = jnp.concatenate([Y.reshape(P * MO, 18), jnp.zeros((1, 18))], 0)
         Af = jnp.concatenate([A.reshape(P * MO, 18), jnp.zeros((1, 18))], 0)
@@ -540,10 +541,10 @@ def pm_staged_lm(
 _PM_CACHE: dict = {}
 
 
-def pm_problem_for(problem) -> PMProblem | None:
+def pm_problem_for(problem) -> tuple[PMProblem | None, int]:
     """build_pm_problem with a small content-keyed cache (the structure
     tables depend only on the observation graph, which repeated ba_solve
-    calls on the same problem reuse)."""
+    calls on the same problem reuse) -> (pm, dropped)."""
     h = hashlib.blake2b(digest_size=16)
     h.update(np.asarray(problem.obs_cam).tobytes())
     h.update(np.asarray(problem.obs_pt).tobytes())
@@ -555,20 +556,19 @@ def pm_problem_for(problem) -> PMProblem | None:
     h.update(np.asarray(problem.obs_sigma2).tobytes())
     key = (h.hexdigest(), problem.cam_pose.shape[0], problem.pt_pos.shape[0])
     if key in _PM_CACHE:
-        cached = _PM_CACHE[key]
-        if cached is None:
-            return None
+        pm, dropped = _PM_CACHE[key]
+        if pm is None:
+            return None, 0
         # refresh the state arrays (poses/points differ between calls
         # that share the same observation set)
-        return cached._replace(
+        return pm._replace(
             cam_pose=problem.cam_pose,
             cam_fixed=problem.cam_fixed,
             cam_valid=problem.cam_valid,
             pt_pos=problem.pt_pos,
             pt_valid=problem.pt_valid,
-        )
-    pm = build_pm_problem(problem)
+        ), dropped
     if len(_PM_CACHE) > 8:
         _PM_CACHE.clear()
-    _PM_CACHE[key] = pm
-    return pm
+    _PM_CACHE[key] = build_pm_problem(problem)
+    return _PM_CACHE[key]

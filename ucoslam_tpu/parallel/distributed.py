@@ -1,19 +1,21 @@
-"""Multi-host (pod-slice) initialization and global meshes.
+"""Multi-host initialization and global meshes.
 
 The reference is a single process (SURVEY.md §2.3: std::thread only) —
-pod-scale distribution is this framework's NEW capability. Topology
+multi-host distribution is this framework's NEW capability. Topology
 convention:
 
-- ICI carries the per-LM-step collectives (the psum of the reduced camera
-  system in parallel/sharded_ba.py and the two psums per pose-graph step)
-  — shardings are laid out so these ride intra-slice links;
-- DCN is touched only at `init_distributed` (process rendezvous) and by
-  checkpoint IO (io/serialize.py writes from process 0).
+- the intra-host links (NVLink between the GPUs of one host) carry the
+  per-LM-step collectives (the psum of the reduced camera system in
+  parallel/sharded_ba.py and the two psums per pose-graph step) —
+  shardings keep each host's devices contiguous;
+- the network between hosts is touched only at `init_distributed`
+  (process rendezvous) and by checkpoint IO (io/serialize.py writes from
+  process 0).
 
 Single-process fallback: with no coordinator configured, everything here
 degrades to the local-device mesh, so call sites never branch on topology.
-This module is exercised on multi-process CPU meshes in CI; real multi-host
-validation requires a pod slice (none in this environment).
+The tests exercise it on multi-process CPU meshes; multi-host runs on GPUs
+have not been made.
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ def init_distributed(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> bool:
-    """Join the jax.distributed rendezvous (multi-host pod slice).
+    """Join the jax.distributed rendezvous (several hosts).
 
     Arguments default from the standard environment (JAX_COORDINATOR_ADDRESS
-    / NUM_PROCESSES / PROCESS_ID or the TPU runtime's auto-detection). Returns
+    / NUM_PROCESSES / PROCESS_ID or the cluster runtime's auto-detection). Returns
     True when a multi-process runtime was initialized, False for the
     single-process fallback (no coordinator configured — the common
     single-host case, including this test environment).
@@ -68,7 +70,7 @@ def global_mesh(axis: str = "pt") -> Mesh:
 
     Device order groups each process's local devices contiguously, so a
     point-block shard's observations stay on one host and the sharded-BA
-    psum reduces across ICI within the slice before DCN (if any).
+    psum reduces within the host before crossing hosts (if any).
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return Mesh(np.asarray(devs), (axis,))

@@ -131,6 +131,7 @@ def shard_ba_problem(problem: BAProblem, n_shards: int) -> BAProblem:
     )
 
 
+@partial(jax.jit, static_argnames=("mesh", "iters", "stages", "solver", "cg_iters"))
 def sharded_ba_solve(
     problem: BAProblem,
     cam: CameraParams,
@@ -144,7 +145,8 @@ def sharded_ba_solve(
 
     `problem` must come from shard_ba_problem(mesh size). Returns a
     BAResult whose obs_chi2 / obs_bad are in the SHARDED observation order
-    (pair them with the sharded problem, as apply_ba_result does).
+    (pair them with the sharded problem, as apply_ba_result does). One
+    program is compiled per mesh, shapes and LM settings.
     """
     n = mesh.devices.size
     axis = mesh.axis_names[0]
@@ -192,17 +194,17 @@ def sharded_ba_solve(
     @partial(
         jax.shard_map,
         mesh=mesh,
-        in_specs=(in_spec,),
+        in_specs=(in_spec, repl),
         out_specs=(repl, repl, sh, repl, sh, sh),
     )
-    def run(local):
+    def run(local, cam):
         return _staged_lm(
             local, cam, iters, stages,
             psum=lambda x: jax.lax.psum(x, axis),
             solver=solver, cg_iters=cg_iters,
         )
 
-    cam_pose, mk_pose, pt_pos, costs, c2, bad = jax.jit(run)(prob)
+    cam_pose, mk_pose, pt_pos, costs, c2, bad = run(prob, cam)
     return BAResult(
         cam_pose=cam_pose,
         pt_pos=pt_pos,

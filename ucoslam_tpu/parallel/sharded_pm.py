@@ -1,8 +1,7 @@
 """Distributed point-major Schur BA — the big-map solver over a mesh.
 
-Communication-avoiding by construction (addresses the eff_64 = 0.27
-finding of BENCH_r04 on the general sharded solver, whose matrix-free CG
-pays one latency-bound (V, 6) psum per CG iteration):
+Communication-avoiding by construction (the general sharded solver's
+matrix-free CG pays one latency-bound (V, 6) psum per CG iteration):
 
 - point rows (and every per-point quantity: the (P, MO) observation
   grid, Hpp marginalization, back-substitution) shard across the "pt"
@@ -15,11 +14,6 @@ pays one latency-bound (V, 6) psum per CG iteration):
   scalar acceptance cost — two latency-bound collectives per step;
 - the PCG loop runs on fully REPLICATED V-sized data: zero collectives
   per CG iteration.
-
-Modeled ICI cost per LM step at 64 chips (bench.py ici_model): ~2 hops
-x 63 x 1us x 2 psums + amortized S payload — ~0.4 ms against the
-~1.6 ms per-chip compute share, eff_64 ~ 0.75+ vs 0.27 for the
-per-CG-iteration-psum design.
 
 The LM/CG implementation is optim.schur_pm.pm_staged_lm itself (psum
 parameter) — the sharded path can never drift from the single-chip
@@ -135,9 +129,17 @@ def sharded_pm_solve(
     Returns (cam_pose, pt_pos, costs, c2, bad) with pt_pos/c2/bad in the
     PADDED point order of spm.pm (rows beyond the original P are pads).
     """
-    axis = mesh.axis_names[0]
-    pm = spm.pm
+    return _sharded_pm_lm(
+        spm.pm, cam, mesh=mesh, iters=iters, stages=stages,
+        cg_iters=cg_iters, relin_every=relin_every,
+    )
 
+
+@partial(jax.jit, static_argnames=("mesh", "iters", "stages", "cg_iters", "relin_every"))
+def _sharded_pm_lm(pm, cam, *, mesh, iters, stages, cg_iters, relin_every):
+    """One compiled program per (mesh, shapes, LM settings); later calls
+    with the same ones reuse it."""
+    axis = mesh.axis_names[0]
     sh, repl = P(axis), P()
     in_spec = PMProblem(
         cam_pose=repl, cam_fixed=repl, cam_valid=repl,
@@ -155,13 +157,13 @@ def sharded_pm_solve(
     @partial(
         jax.shard_map,
         mesh=mesh,
-        in_specs=(in_spec,),
+        in_specs=(in_spec, repl),
         out_specs=(repl, sh, repl, sh, sh),
     )
-    def run(local):
+    def run(local, cam):
         return pm_staged_lm(
             local, cam, iters=iters, stages=stages, cg_iters=cg_iters,
             relin_every=relin_every, psum=local_psum,
         )
 
-    return jax.jit(run)(pm)
+    return run(pm, cam)

@@ -50,6 +50,7 @@ def shard_pose_graph_problem(problem: PoseGraphProblem, n_shards: int) -> PoseGr
     )
 
 
+@partial(jax.jit, static_argnames=("mesh", "iters", "fix_scale"))
 def sharded_pose_graph_solve(
     problem: PoseGraphProblem,
     mesh: Mesh,
@@ -58,7 +59,8 @@ def sharded_pose_graph_solve(
 ) -> jnp.ndarray:
     """Distributed Gauss-Newton; returns optimized (K, 4, 4) Sim3 poses.
 
-    `problem` must come from shard_pose_graph_problem(mesh size).
+    `problem` must come from shard_pose_graph_problem(mesh size). One
+    program is compiled per mesh, shapes and settings.
     """
     K = problem.poses.shape[0]
     zero7 = jnp.zeros(7)
@@ -146,7 +148,7 @@ def sharded_pose_graph_solve(
         )
         return poses, costs
 
-    poses, costs = jax.jit(run)(
+    poses, costs = run(
         problem.poses, problem.fixed, problem.edge_i, problem.edge_j,
         problem.edge_meas, problem.edge_weight,
         problem.edge_valid.astype(jnp.float32),

@@ -109,8 +109,8 @@ _EPI_MAX_NB = 6
 @jax.jit
 def _epipolar_pairs_vmap(st, cur_slot, nb_slots, cam, max_desc_dist, scale_factor):
     """All covis neighbours in one program: vmap over the neighbour axis
-    turns six ~70ms dispatches into one (the hamming/triangulation math
-    batches onto the MXU for free)."""
+    turns six dispatches into one (the hamming/triangulation math batches
+    for free)."""
     return jax.vmap(
         lambda nb: _epipolar_pair_op(
             st, cur_slot, nb, cam, max_desc_dist, scale_factor
@@ -533,7 +533,7 @@ class MapManager:
         if not good:
             return
         # ALL neighbours in one vmapped dispatch + one bundled fetch: the
-        # pair programs are tiny on the MXU, so per-dispatch round-trip
+        # pair programs are tiny, so per-dispatch round-trip
         # latency dominates a python loop over them
         st = world_map.state
         nb_pad = good + [good[-1]] * (_EPI_MAX_NB - len(good))

@@ -32,7 +32,7 @@ class System:
     ):
         from ucoslam_tpu.utils.precision import force_f32_matmuls
 
-        force_f32_matmuls()  # TPU: geometry/optim matmuls must be f32
+        force_f32_matmuls()  # geometry/optim matmuls at full f32 (no TF32)
         params = params.effective()  # apply the extraParams escape hatch
         self.params = params
         self.cam = cam

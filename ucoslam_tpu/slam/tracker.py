@@ -254,8 +254,8 @@ class Tracker:
             use_depth=self.cam.bl > 0,
         )
         # ONE bundled transfer for everything the host-side control flow
-        # needs (device_get issues the copies async then blocks once; a
-        # remote chip charges a full round trip per separate fetch)
+        # needs (device_get issues the copies async then blocks once;
+        # each separate fetch costs a full round trip)
         fetch = [pose, ids, inlier, n_matched, n_inliers, frame.depth,
                  frame.valid]
         pose_np, ids_np, inlier_np, n_matched, n_inl, depth_np, valid_np = (

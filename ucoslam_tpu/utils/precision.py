@@ -1,18 +1,17 @@
-"""Engine-wide f32 matmul precision (TPU correctness default).
+"""Engine-wide f32 matmul precision (the accuracy floor).
 
-On TPU, XLA lowers float32 matmul/einsum/dot to bfloat16 MXU passes
-unless told otherwise. The geometry and optimization paths (pose LM,
-triangulation, Schur solves) are small, latency-bound contractions whose
-accuracy the whole SLAM state depends on — at bf16 input precision the
-mono head-to-head ATE degrades ~11x (0.0088 -> 0.0977 on identical
-frames) while everything still "works". The reference's Eigen/g2o math
-is full f32/f64 throughout (3rdparty/g2o), so full-precision f32 is the
-correct parity default.
+On the GPU, XLA may run float32 matmul/einsum/dot in TF32 on the tensor
+cores (about three decimal digits) unless told otherwise. The geometry and
+optimization paths (pose LM, triangulation, Schur solves) are small,
+latency-bound contractions whose accuracy the whole SLAM state depends on:
+at reduced (bf16) input precision the mono head-to-head ATE degraded ~11x
+(0.0088 -> 0.0977 on identical frames) while everything still "worked".
+The reference's Eigen/g2o math is full f32/f64 throughout (3rdparty/g2o),
+so full-precision f32 -- no TF32 -- is the parity default.
 
-Cost on the production pipeline is negligible: the only LARGE f32
-matmuls (image patch gathers, ops/image.py) already pin
-Precision.HIGHEST explicitly, and the descriptor Hamming bit-matmuls
-are exact at any precision (0/1 products, f32 accumulation).
+The descriptor Hamming bit-matmuls are exact at any precision (+-1 bf16
+products, f32 accumulation). Scoping the pin per op is an open item
+(ROADMAP, Speed).
 
 Call force_f32_matmuls() before tracing any program (precision is baked
 in at trace time); UcoSlam/System and every app entry do.

@@ -8,7 +8,7 @@ moving-average stage times (src/basictypes/timers.h:32-76), gated by the
 
 Host-side timers here bracket whole jitted dispatches (device work is
 opaque inside); for kernel-level profiles use `profile_trace` which wraps
-the jax profiler (the TPU equivalent of USE_TIMERS builds).
+the jax profiler (the device equivalent of USE_TIMERS builds).
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class Debug:
 @contextlib.contextmanager
 def profile_trace(out_dir: str):
     """Dump a jax profiler trace (xplane) for the enclosed block — the
-    TPU-native equivalent of a USE_TIMERS build; view with xprof/tensorboard."""
+    Device-side equivalent of a USE_TIMERS build; view with xprof/tensorboard."""
     import jax
 
     jax.profiler.start_trace(out_dir)
